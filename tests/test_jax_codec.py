@@ -1,5 +1,5 @@
 """Device (JAX) codec tests on the virtual CPU backend, zlib as oracle in
-both directions — the TPU analog of the reference's streaming testbench
+both directions — the device analog of the reference's streaming testbench
 (/root/reference/test_deflate.py:90-296)."""
 
 import zlib

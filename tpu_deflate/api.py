@@ -1,4 +1,4 @@
-"""Top-level compress/decompress API over the TPU kernels.
+"""Top-level compress/decompress API over the device codec.
 
 The byte-level protocol the reference exposes (host writes bytes / polls
 progress counters, /root/reference/test_deflate.py:142-174) becomes a
@@ -17,10 +17,10 @@ import jax.numpy as jnp
 
 from tpu_deflate.config import DeflateConfig
 from tpu_deflate.ops.checksum import adler32_state
-from tpu_deflate.ops.encode import encode_blocks_batch, max_output_bytes
-from zlib import crc32  # C impl: this host's CPU is pathologically slow
+from tpu_deflate.ops.encode import encode_blocks_batch
+from zlib import crc32  # C implementation
 
-from tpu_deflate.spec.checksum import ADLER_MOD, adler32_combine
+from tpu_deflate.spec.checksum import adler32_combine
 
 
 def _chunk(data: bytes, chunk_size: int):
@@ -83,7 +83,7 @@ def deflate_device(data: bytes, config: DeflateConfig = DeflateConfig()):
 
 
 def compress(data: bytes, config: DeflateConfig = DeflateConfig()) -> bytes:
-    """zlib-compatible compress using the TPU encode path."""
+    """zlib-compatible compress using the device encode path."""
     if not config.compress:
         raise ValueError("config disables compress")
     out, out_lens, adler = deflate_device(data, config)
@@ -94,7 +94,7 @@ def compress(data: bytes, config: DeflateConfig = DeflateConfig()) -> bytes:
 
 
 def compress_gzip(data: bytes, config: DeflateConfig = DeflateConfig()) -> bytes:
-    """gzip (RFC 1952) compress using the TPU encode path."""
+    """gzip (RFC 1952) compress using the device encode path."""
     out, out_lens, _ = deflate_device(data, config)
     body = b"".join(
         out[i, : out_lens[i]].tobytes() for i in range(out.shape[0])
@@ -107,10 +107,10 @@ def compress_gzip(data: bytes, config: DeflateConfig = DeflateConfig()) -> bytes
 
 
 def decompress(data: bytes, config: DeflateConfig = DeflateConfig()) -> bytes:
-    """zlib-compatible decompress.
+    """zlib-compatible decompress on the device (ops/decode.py).
 
-    Uses the device decoder for streams it can map (see ops/decode.py);
-    falls back to the host reference decoder otherwise.
+    Decodes any conformant RFC 1950 stream and verifies its Adler-32;
+    raises DeflateError on a corrupt stream.  There is no host fallback.
     """
     if not config.decompress:
         raise ValueError("config disables decompress")
@@ -167,12 +167,6 @@ def decompress_indexed(
 ) -> bytes:
     """Chunk-parallel decompress of an indexed stream (vmapped lanes, one
     per chunk).  Verifies the Adler-32 trailer."""
-    import jax
-
-    from tpu_deflate.ops.decode import expand_batch, tokenize
-    from tpu_deflate.ops.checksum import adler32_state
-    from tpu_deflate.spec.checksum import ADLER_MOD
-
     body = stream[2:-4]
     index = np.asarray(index, dtype=np.int64)
     nchunks = len(index)
@@ -223,7 +217,7 @@ def decompress_indexed(
     totals_h = np.asarray(totals)[:nchunks]
     if nchunks > 1 and (totals_h[:-1] == chunk).all():
         # common shape (all interior chunks full): one memcpy, not a
-        # per-chunk join — this host's CPU is slow
+        # per-chunk join
         result = (
             outs_h[:-1].reshape(-1).tobytes()
             + outs_h[-1, : totals_h[-1]].tobytes()
@@ -235,7 +229,7 @@ def decompress_indexed(
     expect = int.from_bytes(stream[-4:], "big")
     import zlib as _z
 
-    if _z.adler32(result) != expect:  # C adler: this host's CPU is slow
+    if _z.adler32(result) != expect:
         raise ValueError("Adler-32 mismatch")
     return result
 
@@ -281,7 +275,7 @@ class StreamCompressor:
         arr = np.frombuffer(take, np.uint8).reshape(nfull, C)
         lens = np.full(nfull, C, np.int32)
         finals = np.zeros(nfull, bool)
-        from zlib import adler32 as _ad  # C impl: host CPU is very slow
+        from zlib import adler32 as _ad
 
         self._adler = _ad(take, self._adler)
         body = self._encode_chunks(arr, lens, finals)
@@ -299,7 +293,7 @@ class StreamCompressor:
         self._pending.clear()
         arr = np.zeros((1, C), np.uint8)
         arr[0, : len(tail)] = np.frombuffer(tail, np.uint8)
-        from zlib import adler32 as _ad  # C impl: host CPU is very slow
+        from zlib import adler32 as _ad
 
         self._adler = _ad(tail, self._adler)
         body = self._encode_chunks(
@@ -395,11 +389,6 @@ def _scan_gzip_members(data: bytes):
 def decompress_gzip(data: bytes, config: DeflateConfig = DeflateConfig()) -> bytes:
     """gzip decompress: chunk-parallel for self-indexing members, member-
     by-member device decode otherwise."""
-    import jax
-
-    from tpu_deflate.ops.decode import expand_batch, tokenize
-    from zlib import crc32 as _crc  # C impl: host CPU is very slow
-
     members = _scan_gzip_members(data)
     if members is None:
         return _foreign_gzip_device(data, config)
@@ -439,7 +428,7 @@ def _foreign_gzip_device(data: bytes, config: DeflateConfig) -> bytes:
     sequentially — each one on device via ``inflate_device``."""
     from tpu_deflate.ops.decode import inflate_device
     from tpu_deflate.ref.inflate import DeflateError
-    from zlib import crc32 as _crc  # C impl: host CPU is very slow
+    from zlib import crc32 as _crc
 
     out_all = bytearray()
     pos = 0
@@ -505,7 +494,7 @@ def _decode_member_bodies(data: bytes, members, config: DeflateConfig):
         raise ValueError(f"inflate error codes {errs[errs != 0][:8]}")
     outs_h = np.asarray(outs)[:nm]
     totals_h = np.asarray(totals)[:nm]
-    from zlib import crc32 as _crc  # C impl: host CPU is very slow
+    from zlib import crc32 as _crc
 
     parts = []
     for i, (s, e, isize) in enumerate(members):
@@ -574,7 +563,7 @@ class StreamDecompressor:
         return members, pos
 
     def _emit(self, pieces, emitted: bytes):
-        from zlib import adler32 as _ad  # C impl: host CPU is very slow
+        from zlib import adler32 as _ad
 
         pieces.append(emitted)
         self._adler = _ad(emitted, self._adler)

@@ -1,4 +1,4 @@
-"""Command-line interface: gzip-like compress/decompress on TPU.
+"""Command-line interface: gzip-like compress/decompress on the device.
 
 Usage:
     python -m tpu_deflate [-d] [-o OUT] [--gzip] [--level fast|ref|max] FILE

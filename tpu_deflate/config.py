@@ -16,7 +16,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class DeflateConfig:
-    """Compile-time configuration for the TPU codec.
+    """Compile-time configuration for the device codec.
 
     Mirrors the reference flag surface:
       compress / decompress  -> COMPRESS / DECOMPRESS (deflate.py:23-24)

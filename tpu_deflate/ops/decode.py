@@ -1,4 +1,4 @@
-"""TPU-native DEFLATE decoder (jittable, static shapes, gather-free hot path).
+"""Data-parallel DEFLATE decoder (jittable, static shapes).
 
 Reinterprets the reference's 28-state decode FSM
 (/root/reference/deflate.py:656-1659) in two stages:
@@ -11,9 +11,7 @@ Reinterprets the reference's 28-state decode FSM
   sweep — giving a jump array next[p] = p + symbol_bits(p).  The true
   symbol boundaries are the orbit of the block's start bit under next[].
 
-  TPU-native detail (measured on v5e): XLA gathers/scatters run at only
-  ~100M indices/s while elementwise VPU work is ~free, so unlike a GPU
-  design nothing in the hot path may gather:
+  The tokenizer's hot path is gather-free by construction:
 
   * Bitstream peeks build per-position 64-bit windows from *consecutive*
     byte slices + variable shifts (replaces the reference's ``get4``
@@ -52,7 +50,6 @@ import numpy as np
 
 from tpu_deflate.config import DeflateConfig
 from tpu_deflate.spec import tables as T
-from tpu_deflate.spec.huffman import build_decode_table
 
 TABLE_BITS = 15
 TABLE_SIZE = 1 << TABLE_BITS
@@ -523,8 +520,8 @@ def chase_reach(adv: jax.Array, term: jax.Array, P: int) -> jax.Array:
     adv: int32[P] jump lengths in [1, 48]; term: bool[P] chain terminators
     (the chain stops AT a terminal position, which is still marked
     reached).  Returns bool[P].  Select-based (gather-free) hierarchical
-    transfer-map composition over 64-wide tiles — the TPU replacement for
-    per-symbol/per-token FSM stepping, shared by the decoder's boundary
+    transfer-map composition over 64-wide tiles — the data-parallel
+    replacement for per-symbol/per-token FSM stepping, shared by the decoder's boundary
     chase and the encoder's greedy parse."""
     T64 = P // 64
     # (64, T) layout: tiles as columns so selects are row slices
@@ -593,19 +590,16 @@ CL_WIN = 4608  # dynamic-header window, bits: HLIT+HDIST <= 316 lengths,
 
 
 def _decode_cl_lengths(data_ext, pos0, target, cl_lim, cl_rd, cl_meta,
-                       win: int = CL_WIN, reach_fn=None):
+                       win: int = CL_WIN):
     """Decode the HLIT+HDIST code lengths of a dynamic block header.
 
     Vectorized mini boundary-chase over a ``win``-bit window starting at
     absolute bit ``pos0`` (the data-parallel form of the reference's
     READBL/REPEAT walk, /root/reference/deflate.py:1125-1146): a CL-symbol
-    candidate at every bit position, boundaries by chase_reach (or the
-    caller's ``reach_fn(adv, term) -> bool[win]`` — the single-lane
-    foreign loop plugs in the Pallas chase), repeats resolved by exclusive
-    forward fill, interval paints by prefix sums.
+    candidate at every bit position, boundaries by chase_reach, repeats
+    resolved by exclusive forward fill, interval paints by prefix sums.
     Returns (lengths int32[MAX_SYMS], end_next_rel, ok) where end_next_rel
     is the bit offset from pos0 of the first symbol AFTER the header.
-    Shared by the tokenize outer loop and the fused-tokenizer header prep.
     """
     CL_WIN_ = win
     U = CL_WIN_ // 8 + 1
@@ -657,7 +651,7 @@ def _decode_cl_lengths(data_ext, pos0, target, cl_lim, cl_rd, cl_meta,
     count_f = flat(count)
     adv_f = flat(adv8)
     term_f = sym_f < 0
-    reached = (reach_fn(adv_f, term_f) if reach_fn is not None else chase_reach(adv_f, term_f, CL_WIN_))
+    reached = chase_reach(adv_f, term_f, CL_WIN_)
 
     pidx = jnp.arange(CL_WIN_, dtype=jnp.int32)
     opc = jnp.where(reached & ~term_f, count_f, 0)
@@ -682,24 +676,14 @@ def _decode_cl_lengths(data_ext, pos0, target, cl_lim, cl_rd, cl_meta,
     )
 
     # paint interval starts into the lengths array, forward-fill.  Targets
-    # cum_ex are STRICTLY increasing over live ops (count >= 1), so on TPU
-    # the paint runs as the monotone one-hot MXU kernel instead of an XLA
-    # scatter (under vmap the scatter's ~1M indices per batch cost ~10 ms
-    # of the header prep); values are stored +1 so empty slots read 0.
+    # cum_ex are strictly increasing over live ops (count >= 1), so each
+    # slot receives at most one live value; values are stored +1 so empty
+    # slots read 0.
     pk = (cum_ex << 9) | (assign + 1)  # < 2^19, increasing in s
-    if jax.devices()[0].platform == "tpu":
-        from tpu_deflate.kernels.monotone import mono_compact
-
-        idxm = jnp.where(live_op, cum_ex, jnp.int32(MAX_SYMS))
-        q = jnp.where(live_op, pk + 1, 0)
-        ch = jnp.stack([q & 0x3FFF, q >> 14])
-        comp = mono_compact(idxm, ch, MAX_SYMS)
-        arr = (comp[0] + (comp[1] << 14)) - 1  # empty -> -1
-    else:
-        tgt_idx = jnp.where(live_op, cum_ex, jnp.int32(MAX_SYMS))
-        arr = jnp.full((MAX_SYMS,), -1, jnp.int32).at[tgt_idx].max(
-            jnp.where(live_op, pk, -1), mode="drop"
-        )
+    tgt_idx = jnp.where(live_op, cum_ex, jnp.int32(MAX_SYMS))
+    arr = jnp.full((MAX_SYMS,), -1, jnp.int32).at[tgt_idx].max(
+        jnp.where(live_op, pk, -1), mode="drop"
+    )
     farr = jax.lax.cummax(arr)
     sidx = jnp.arange(MAX_SYMS, dtype=jnp.int32)
     lengths = jnp.where(
@@ -713,7 +697,7 @@ def _decode_cl_lengths(data_ext, pos0, target, cl_lim, cl_rd, cl_meta,
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "tok_cap", "pwin", "stop_at_eob", "static_only", "vector_cllen",
+        "tok_cap", "pwin", "stop_at_eob", "static_only",
         "one_block", "return_bfinal",
     ),
 )
@@ -725,7 +709,6 @@ def tokenize(
     pwin: int = 1 << 18,
     stop_at_eob: bool = False,
     static_only: bool = False,
-    vector_cllen: bool = True,
     one_block: bool = False,
     return_bfinal: bool = False,
 ):
@@ -779,7 +762,6 @@ def tokenize(
         state,
         hlit=jnp.int32(0),
         hdist=jnp.int32(0),
-        cl_idx=jnp.int32(0),
         lit_lim=jnp.asarray(_S_LIT_LIM),
         lit_rd=jnp.asarray(_S_LIT_RD),
         lit_meta=jnp.asarray(_S_LIT_META),
@@ -865,7 +847,6 @@ def tokenize(
                 bfinal=bfinal,
                 hlit=hlit,
                 hdist=hdist,
-                cl_idx=jnp.int32(0),
                 cl_lim=clim,
                 cl_rd=crd,
                 cl_meta=cmeta,
@@ -881,11 +862,11 @@ def tokenize(
 
     # -------- code-length symbol decode (dynamic header) -----------------
     # Vectorized mini boundary-chase over the header region: the reference
-    # (READBL/REPEAT, deflate.py:1125-1146) and our earlier version walk
-    # one CL symbol per step (<=316 sequential iterations, the dominant
-    # cost of foreign-stream decode); instead decode a CL-symbol candidate
-    # at every bit position of an 8192-bit window, chase the boundaries,
-    # and assemble the lengths with prefix sums and forward fills.
+    # (READBL/REPEAT, deflate.py:1125-1146) walks one CL symbol per step
+    # (<=316 sequential iterations, each a data-dependent loop trip on the
+    # device); instead decode a CL-symbol candidate at every bit position
+    # of a CL_WIN-bit window, chase the boundaries, and assemble the
+    # lengths with prefix sums and forward fills.
 
     def cllen_vec(s):
         lengths, end_next, ok = _decode_cl_lengths(
@@ -895,58 +876,9 @@ def tokenize(
         return dict(
             s,
             pos=s["pos"] + end_next,
-            cl_idx=s["hlit"] + s["hdist"],
             lengths=lengths,
             err=jnp.where(ok, s["err"], jnp.int32(ERR_BAD_CODE)),
             mode=jnp.where(ok, jnp.int32(M_TABLES), jnp.int32(M_ERROR)),
-        )
-
-    # sequential variant (one CL symbol per step): for SINGLE-stream
-    # decode the mini-chase's fixed ~1.3k-op dispatch cost per header is
-    # slower than this loop; batched (vmapped) lanes amortize the chase.
-    def cllen_step(s):
-        pos = s["pos"]
-        v15 = _revbits15_vec(peek(pos, 15)) >> 1
-        cnt = jnp.int32(0)
-        for L in range(1, 16):
-            cnt = cnt + (v15 < s["cl_lim"][L]).astype(jnp.int32)
-        nb = 16 - cnt
-        nbc = jnp.clip(nb, 1, 15)
-        rank = (v15 >> (15 - nbc)) + s["cl_rd"][nbc]
-        sym = s["cl_meta"][jnp.clip(rank, 0, 18)]
-        bad = (nb > 7) | (rank < 0) | (rank > 18) | (sym < 0)
-        pos = pos + nbc
-        ci = s["cl_idx"]
-        lengths = s["lengths"]
-        prev = lengths[jnp.clip(ci - 1, 0, MAX_SYMS - 1)]
-        x7 = peek(pos, 7)
-        is16 = sym == 16
-        is17 = sym == 17
-        is18 = sym == 18
-        islit = sym < 16
-        adv = jnp.where(is16, 2, jnp.where(is17, 3, jnp.where(is18, 7, 0)))
-        count = jnp.where(
-            islit,
-            1,
-            jnp.where(is16, 3 + (x7 & 3), jnp.where(is17, 3 + (x7 & 7), 11 + x7)),
-        )
-        value = jnp.where(islit, sym, jnp.where(is16, prev, 0))
-        sidx = jnp.arange(MAX_SYMS, dtype=jnp.int32)
-        write = (sidx >= ci) & (sidx < ci + count)
-        lengths = jnp.where(write, value, lengths)
-        ci = ci + count
-        done = ci >= s["hlit"] + s["hdist"]
-        return dict(
-            s,
-            pos=pos + adv,
-            cl_idx=ci,
-            lengths=lengths,
-            err=jnp.where(bad, jnp.int32(ERR_BAD_CODE), s["err"]),
-            mode=jnp.where(
-                bad,
-                jnp.int32(M_ERROR),
-                jnp.where(done, jnp.int32(M_TABLES), s["mode"]),
-            ),
         )
 
     def tables_fn(s):
@@ -1026,35 +958,11 @@ def tokenize(
             )
         )
         # ONE compaction per pass: token fields packed into a single int32
-        # (kind 2b | len-or-byte 9b | dist 17b).  Slots are NONDECREASING
-        # (a cumsum of the reach mask), so on TPU the compaction runs as
-        # the monotone one-hot MXU kernel instead of an XLA scatter (the
-        # scatter ran at ~100M idx/s and dominated tokenize).
+        # (kind 2b | len-or-byte 9b | dist 17b), scattered to their slots
+        # (a cumsum of the reach mask).  Positions that are not tokens all
+        # land on the sentinel slot tok_cap - 1, which cap_ok keeps unused.
         packed_tok = (tk_val << 26) | (ta_val << 17) | (tb_val & 0x1FFFF)
-        import os as _os
-
-        # the compaction kernel keeps its (2, tok_cap) output resident in
-        # VMEM; big single-stream token buffers must take the XLA scatter
-        if (
-            jax.devices()[0].platform == "tpu"
-            and tok_cap <= (1 << 19)  # (2, tok_cap) output stays in VMEM
-            and not _os.environ.get("TPU_DEFLATE_NO_MONO_COMPACT")
-        ):
-            from tpu_deflate.kernels.monotone import mono_compact
-
-            slot2 = jnp.where(
-                tmask & cap_ok, tp + ord1 - 1, jnp.int32(tok_cap)
-            )
-            ch = jnp.stack(
-                [
-                    jnp.where(tmask, packed_tok & 0x3FFF, 0),
-                    jnp.where(tmask, packed_tok >> 14, 0),
-                ]
-            )
-            comp = mono_compact(slot2, ch, tok_cap)
-            new_tk = s["tk"] + comp[0] + (comp[1] << 14)
-        else:
-            new_tk = s["tk"].at[slot].set(packed_tok)
+        new_tk = s["tk"].at[slot].set(packed_tok)
 
         # distance validity: each match must reach only already-produced
         # output.  Checked over the COMPACTED token slots (tok_cap-sized
@@ -1117,14 +1025,7 @@ def tokenize(
     def outer_body(s):
         s = jax.lax.cond(s["mode"] == M_HEADER, header_fn, lambda s: s, s)
         if not static_only:
-            if vector_cllen:
-                s = jax.lax.cond(s["mode"] == M_CLLEN, cllen_vec, lambda s: s, s)
-            else:
-                s = jax.lax.while_loop(
-                    lambda s: (s["mode"] == M_CLLEN) & in_bounds(s),
-                    cllen_step,
-                    s,
-                )
+            s = jax.lax.cond(s["mode"] == M_CLLEN, cllen_vec, lambda s: s, s)
             s = jax.lax.cond(s["mode"] == M_TABLES, tables_fn, lambda s: s, s)
         s = jax.lax.cond(s["mode"] == M_TOKENS, block_pass, lambda s: s, s)
         return s
@@ -1172,7 +1073,7 @@ def _expand_fields(data, tk, ta, tb, tp, any_stored, out_cap: int):
     Per-byte ownership by scatter-at-token-start + monotone cummax
     forward-fill (three 13-bit payload channels); constant-distance runs
     collapsed analytically; the remaining parent chains are resolved by
-    the batched ``resolve_roots`` (Pallas MXU kernel on TPU) — together
+    the batched ``resolve_roots`` — together
     the parallel generalization of the reference's COPY state and its
     off1/off2 overlap cases (deflate.py:1593-1659)."""
     TOK = tk.shape[0]
@@ -1263,81 +1164,45 @@ def _expand_fields(data, tk, ta, tb, tp, any_stored, out_cap: int):
     return val, parent, in_range, total
 
 
+def resolve_roots(parent: jax.Array, val: jax.Array) -> jax.Array:
+    """Value at the root of each position's parent chain.
+
+    parent/val: int32[..., N], parent indices into the last axis; a root
+    is its own parent.  Pointer doubling (parent <- parent[parent]) until
+    no pointer moves, then one gather of the root values; the loop takes
+    ceil(log2(longest chain)) + 1 trips."""
+    def cond(c):
+        _, changed = c
+        return changed
+
+    def body(c):
+        p, _ = c
+        nxt = jnp.take_along_axis(p, p, axis=-1)
+        return nxt, jnp.any(nxt != p)
+
+    p, _ = jax.lax.while_loop(cond, body, (parent, jnp.bool_(True)))
+    return jnp.take_along_axis(val, p, axis=-1)
+
+
 @functools.partial(jax.jit, static_argnames=("out_cap",))
 def expand_batch(data, tk, ta, tb, tp, out_cap: int):
     """Stage 2, batched over chunk lanes: token arrays -> output bytes.
 
-    data: uint8[B, M]; tk/ta/tb: int32[B, TOK]; tp: int32[B].
-    Returns (uint8[B, out_cap], int32[B] totals).  On TPU the whole stage
-    (paint + fill + run collapse + back-ref resolve) runs as ONE fused
-    sequential Pallas kernel (kernels/expand3.py); streams containing
-    stored-block tokens (which need an input-data gather) take the XLA
-    path via a runtime cond."""
-    import os as _os
-
-    from tpu_deflate.kernels.expand2 import OTILE, expand_fused2
-    from tpu_deflate.kernels.resolve import resolve_roots
-
+    data: uint8[B, M] (or uint8[M], one stream shared by every lane);
+    tk/ta/tb: int32[B, TOK]; tp: int32[B].  Returns (uint8[B, out_cap],
+    int32[B] totals).  Stored-block bytes are gathered from ``data`` only
+    when some lane holds a stored token."""
     data_axis = 0 if data.ndim == 2 else None  # 1-D = shared stream blob
     TOK = tk.shape[-1]
     live = jnp.arange(TOK) < tp[..., None]
     any_stored = jnp.any((tk == TK_STORED) & live)
-
-    def xla_path(_):
-        val, parent, in_range, total = jax.vmap(
-            functools.partial(_expand_fields, out_cap=out_cap),
-            in_axes=(data_axis, 0, 0, 0, 0, None),
-        )(data, tk, ta, tb, tp, any_stored)
-        root = resolve_roots(parent, val)
-        out = jnp.where(in_range, root, 0).astype(jnp.uint8)
-        return out, total
-
-    on_tpu = jax.devices()[0].platform == "tpu"
-    use_kernel = (
-        on_tpu
-        and out_cap % OTILE == 0
-        and OTILE <= out_cap <= (1 << 20)
-        and tk.ndim == 2
-        and not _os.environ.get("TPU_DEFLATE_NO_PALLAS_EXPAND")
-    )
-    if not use_kernel:
-        return xla_path(None)
-
-    from tpu_deflate.kernels.expand3 import MAXD as MAXD3, expand_fused3
-
-    use_v3 = out_cap <= (1 << 16) and not _os.environ.get(
-        "TPU_DEFLATE_NO_EXPAND_V3"
-    )
-
-    def kern_path(_):
-        out_len_tok = jnp.where(live, jnp.where(tk == TK_LIT, 1, ta), 0)
-        off = (jnp.cumsum(out_len_tok, axis=-1) - out_len_tok).astype(jnp.int32)
-        total = jnp.sum(out_len_tok, axis=-1).astype(jnp.int32)
-        c1 = ((tk & 3) << 9) | (ta & 0x1FF)
-
-        def v3(_):
-            outk = expand_fused3(off, c1, tb, tp, total, out_cap=out_cap)
-            return outk.astype(jnp.uint8), total
-
-        def v2(max_dist):
-            def f(_):
-                outk = expand_fused2(
-                    off, c1, tb, tp, total, out_cap=out_cap, max_dist=max_dist
-                )
-                return outk.astype(jnp.uint8), total
-
-            return f
-
-        # distances <= 256 take the gather-native v3 kernel; <= 2048 the
-        # narrow v2 pull window; the full RFC window a 272-row v2 variant
-        small_d = ~jnp.any(live & (tk == TK_MATCH) & (tb > 2048))
-        v2_path = lambda x: jax.lax.cond(small_d, v2(2048), v2(32768), x)
-        if not use_v3:
-            return v2_path(None)
-        tiny_d = ~jnp.any(live & (tk == TK_MATCH) & (tb > MAXD3))
-        return jax.lax.cond(tiny_d, v3, v2_path, None)
-
-    return jax.lax.cond(any_stored, xla_path, kern_path, None)
+    val, parent, in_range, total = jax.vmap(
+        functools.partial(_expand_fields, out_cap=out_cap),
+        in_axes=(data_axis, 0, 0, 0, 0, None),
+    )(data, tk, ta, tb, tp, any_stored)
+    root = resolve_roots(parent, val)
+    out = jnp.where(in_range, root, 0).astype(jnp.uint8)
+    return out, total
 
 
 @functools.partial(jax.jit, static_argnames=("out_cap",))
@@ -1349,17 +1214,8 @@ def expand(data, tk, ta, tb, tp, out_cap: int):
     return out[0], total[0]
 
 
-def _fused_pw(out_cap: int) -> int:
-    """Plane window (bits) for the fused tokenizer: covers any single
-    static block that decodes to <= out_cap bytes (csize <= out_cap + 5·
-    ceil(out_cap/65535) + slack, else the encoder's finalize would have
-    picked the smaller stored form).  Must be a multiple of 64*128."""
-    want = 8 * (out_cap + 64)
-    return max(-(-want // 8192) * 8192, 8192)
-
-
 @functools.partial(
-    jax.jit, static_argnames=("out_cap", "tok_cap", "static_only", "interpret")
+    jax.jit, static_argnames=("out_cap", "tok_cap", "static_only")
 )
 def decode_rows_batch(
     rows: jax.Array,  # uint8[B, M] — one byte-aligned block run per lane
@@ -1367,209 +1223,25 @@ def decode_rows_batch(
     out_cap: int,
     tok_cap: int,
     static_only: bool = True,
-    interpret: bool = False,
 ):
     """Chunk-parallel decode of per-lane rows: stage 1 + stage 2.
 
     Lanes stop at their first end-of-block (the indexed own-container
-    layout: one block per chunk).  On TPU with static_only, stage 1 runs
-    as the FUSED Pallas tokenizer (kernels/tokenize.py) when every lane
-    is a static block that fits the plane window; stored/dynamic lanes or
-    oversized streams take the XLA boundary-chase via a runtime cond.
-    Returns (out uint8[B, out_cap], totals int32[B], errs int32[B]).
+    layout: one block per chunk).  ``static_only`` compiles the
+    arithmetic stored/static decoder; dynamic lanes then report
+    ERR_DYNAMIC.  Returns (out uint8[B, out_cap], totals int32[B],
+    errs int32[B]).
     """
-    import os as _os
-
-    B, M = rows.shape
     ends = ends.astype(jnp.int32)
     pwin = chunk_pwin(out_cap)
-
-    def xla_path(_):
-        tk, ta, tb, tp, _tot, _pos, err = jax.vmap(
-            lambda row, e: tokenize(
-                row, 0, tok_cap=tok_cap, end_bit=e, pwin=pwin,
-                stop_at_eob=True, static_only=static_only,
-            )
-        )(rows, ends)
-        out, total = expand_batch(rows, tk, ta, tb, tp, out_cap=out_cap)
-        return out, total, err
-
-    on_tpu = jax.devices()[0].platform == "tpu" or interpret
-    use_kernel = (
-        out_cap <= (1 << 16)
-        and on_tpu
-        and not _os.environ.get("TPU_DEFLATE_NO_FUSED_TOKENIZE")
-    )
-    if not use_kernel:
-        return xla_path(None)
-
-    pw = _fused_pw(out_cap)
-    empty = ends <= 3
-
-    if static_only:
-        from tpu_deflate.kernels.tokenize import tokenize_static_batch
-
-        ok_lane = empty | (
-            (((rows[:, 0].astype(jnp.int32) >> 1) & 3) == 1)
-            & (ends <= pw - 64)
+    tk, ta, tb, tp, _tot, _pos, err = jax.vmap(
+        lambda row, e: tokenize(
+            row, 0, tok_cap=tok_cap, end_bit=e, pwin=pwin,
+            stop_at_eob=True, static_only=static_only,
         )
-
-        def fused(_):
-            tok, ntok, _tot, _pos, err = tokenize_static_batch(
-                rows, ends, pw=pw, interpret=interpret
-            )
-            tk = (tok >> 26) & 3
-            ta = (tok >> 17) & 0x1FF
-            tb = tok & 0x1FFFF
-            out, total = expand_batch(rows, tk, ta, tb, ntok, out_cap=out_cap)
-            return out, total, err
-
-        return jax.lax.cond(jnp.all(ok_lane), fused, xla_path, None)
-
-    # generic (dynamic/static mixed) container: per-lane comparison-decode
-    # tables from the batched header parse, then the fused dynamic kernel
-    from tpu_deflate.kernels.tokenize_dyn import (
-        MIN_LIT_LEN,
-        tokenize_dyn_batch,
-    )
-
-    if _os.environ.get("TPU_DEFLATE_NO_FUSED_DYN"):
-        return xla_path(None)
-
-    prep = dyn_header_params_batch(rows, ends)
-    ok_lane = empty | (
-        (prep["ok"] > 0)
-        & (prep["min_len"] >= MIN_LIT_LEN)
-        & (ends <= pw - 64)
-    )
-
-    def fused_dyn(_):
-        tok, ntok, _tot, _pos, err = tokenize_dyn_batch(
-            rows, ends, prep["tab"], prep["start"], pw=pw,
-            interpret=interpret,
-        )
-        tk = (tok >> 26) & 3
-        ta = (tok >> 17) & 0x1FF
-        tb = tok & 0x1FFFF
-        out, total = expand_batch(rows, tk, ta, tb, ntok, out_cap=out_cap)
-        return out, total, err
-
-    return jax.lax.cond(jnp.all(ok_lane), fused_dyn, xla_path, None)
-
-
-def _pack_nibbles(v: jax.Array, per: int, bits: int) -> jax.Array:
-    """Pack ``per`` consecutive ``bits``-bit values per int32 along the
-    last axis.  v: int32[..., K] with K % per == 0."""
-    K = v.shape[-1]
-    r = v.reshape(v.shape[:-1] + (K // per, per))
-    sh = (bits * jnp.arange(per, dtype=jnp.int32))
-    return jnp.sum(r << sh, axis=-1).astype(jnp.int32)
-
-
-def pack_block_tab(lit_lengths, dist_lengths, start, out_base=None):
-    """Canonical params + packed kernel table for ONE block's trees.
-
-    lit_lengths int32[288], dist_lengths int32[32]; start = absolute bit
-    of the first symbol; out_base = output bytes emitted by earlier
-    blocks (foreign multi-block streams).  Returns (tab int32[160],
-    min_len, trees_ok) in the kernels/tokenize_dyn.py TAB layout.
-    """
-    ident = lambda sym, xp=np: sym
-    llim, lrd, lsym, lover = _canon_params_jax(lit_lengths, 288, ident)
-    dlim, drd, dsym, dover = _canon_params_jax(dist_lengths, 32, ident)
-    trees_ok = ~lover & ~dover
-    min_len = jnp.min(jnp.where(lit_lengths > 0, lit_lengths, 99))
-    valid = (lsym >= 0) & (lsym <= 287)
-    symp1 = jnp.where(valid, lsym + 1, 0)
-    lit_sym8 = _pack_nibbles(symp1 & 0xFF, 4, 8)  # (72,)
-    lit_symhi = _pack_nibbles(symp1 >> 8, 32, 1)  # (9,)
-    dvalid = (dsym >= 0) & (dsym <= 29)
-    dist_sym8 = _pack_nibbles(jnp.where(dvalid, dsym + 1, 0), 4, 8)  # (8,)
-    ob = jnp.int32(0) if out_base is None else jnp.asarray(out_base, jnp.int32)
-    tab = jnp.concatenate([
-        llim, lrd, dlim, drd, lit_sym8, lit_symhi, dist_sym8,
-        jnp.asarray(start, jnp.int32)[None], min_len[None], ob[None],
-        jnp.zeros((4,), jnp.int32),
-    ])  # (160,)
-    return tab, min_len, trees_ok
-
-
-def dyn_header_params_batch(rows: jax.Array, ends: jax.Array):
-    """Per-lane FIRST-block header parse + packed comparison-decode tables
-    for the fused dynamic tokenizer (kernels/tokenize_dyn.py).
-
-    rows: uint8[B, M] (one block run per lane, bit 0 on); ends: int32[B].
-    Parses stream position 0's block header: static blocks (btype 1) get
-    the RFC static trees and start_bit 3; dynamic blocks (btype 2) decode
-    HLIT/HDIST/HCLEN + the code-length mini-chase (_decode_cl_lengths) and
-    build per-lane canonical params — the batched analog of the
-    reference's BL/READBL/REPEAT + HF1..SPREAD phases
-    (/root/reference/deflate.py:1084-1400).  Returns a dict of int32
-    arrays:
-
-      ok[B]        lane is static/dynamic with valid trees (else caller
-                   falls back to the XLA tokenize)
-      start[B]     absolute bit of the first symbol
-      min_len[B]   shortest literal/length code (bounds symbol visits per
-                   64-bit tile for the kernel's walk)
-      tab[B, 160]  concatenated per-lane kernel table (layout TAB_* in
-                   kernels/tokenize_dyn.py): lit_lim/lit_rd/dist_lim/
-                   dist_rd (16 each), lit_sym8 (72: 4 x 8-bit low bytes of
-                   sym+1 per int32, 0=dead rank), lit_symhi (9: 32 x 1-bit
-                   bit-8s), dist_sym8 (8: 4 x 8-bit dsym+1), start,
-                   min_len, padding
-    """
-    B, M = rows.shape
-    # the CL window slices up to byte0 + CL_WIN/8 + 9 with byte0 <= ~25
-    need = CL_WIN // 8 + 64
-    if M < need:
-        rows = jnp.pad(rows, ((0, 0), (0, need - M)))
-
-    s_lit_lengths = jnp.asarray(T.STATIC_LITLEN_LENGTHS)
-    s_dist_lengths = jnp.asarray(T.STATIC_DIST_LENGTHS)
-    cl_order = jnp.asarray(T.CODE_LENGTH_ORDER)
-
-    def lane(row, end):
-        d32 = row.astype(jnp.uint32)
-        btype = _peek_bits(d32, jnp.int32(1), 2)
-        # --- dynamic parse (computed unconditionally; masked by btype) ---
-        hlit = _peek_bits(d32, jnp.int32(3), 5) + 257
-        hdist = _peek_bits(d32, jnp.int32(8), 5) + 1
-        hclen = _peek_bits(d32, jnp.int32(13), 4) + 4
-        p = jnp.int32(17)
-        j = jnp.arange(19, dtype=jnp.int32)
-        raw = _peek_bits(d32, p + 3 * j, 3)
-        raw = jnp.where(j < hclen, raw, 0)
-        cl_lengths = jnp.zeros((19,), jnp.int32).at[cl_order].set(raw)
-        clim, crd, cmeta, cover = _canon_params_jax(
-            cl_lengths, 19, lambda sym, xp=np: sym
-        )
-        pos0 = p + 3 * hclen
-        lengths, end_next, cl_ok = _decode_cl_lengths(
-            row, pos0, hlit + hdist, clim, crd, cmeta
-        )
-        sidx = jnp.arange(MAX_SYMS, dtype=jnp.int32)
-        dyn_lit = jnp.where(sidx < hlit, lengths, 0)[:288]
-        dl = lengths[jnp.clip(hlit + jnp.arange(32), 0, MAX_SYMS - 1)]
-        dyn_dist = jnp.where(jnp.arange(32) < hdist, dl, 0)
-
-        is_static = btype == 1
-        lit_lengths = jnp.where(is_static, s_lit_lengths, dyn_lit)
-        dist_lengths = jnp.where(is_static, s_dist_lengths, dyn_dist)
-        start = jnp.where(is_static, 3, pos0 + end_next)
-        empty = end <= 3  # no stream at all: harmless, kernel emits nothing
-        start = jnp.where(empty, 0, start)
-
-        tab, min_len, trees_ok = pack_block_tab(
-            lit_lengths, dist_lengths, start
-        )
-        ok = empty | is_static | ((btype == 2) & cl_ok & ~cover & trees_ok)
-        min_len = jnp.where(empty, 99, min_len)
-        return dict(
-            ok=ok.astype(jnp.int32), start=start, min_len=min_len, tab=tab,
-        )
-
-    return jax.vmap(lane)(rows, ends.astype(jnp.int32))
+    )(rows, ends)
+    out, total = expand_batch(rows, tk, ta, tb, tp, out_cap=out_cap)
+    return out, total, err
 
 
 def chunk_pwin(chunk: int) -> int:
@@ -1586,10 +1258,9 @@ def chunk_pwin(chunk: int) -> int:
 
 def _pick_pwin(nbytes: int) -> int:
     """Window (bit positions per parallel pass) covering nbytes of
-    compressed data, capped to bound memory.  Cap measured on v5e:
-    2^17 beats 2^19 for multi-block single streams (zlib emits a block
-    per ~16K symbols, so wider planes mostly decode past the block end
-    and the boundary chase's fixed hierarchy cost grows with pwin)."""
+    compressed data, capped at 2^17: zlib emits a block per ~16K
+    symbols, so wider planes mostly decode past the block end while the
+    boundary chase's fixed hierarchy cost grows with pwin."""
     want = 8 * max(nbytes, 64)
     p = 1 << int(np.ceil(np.log2(want)))
     return min(p, 1 << 17)
@@ -1611,23 +1282,6 @@ def inflate_device(
     (/root/reference/deflate.py:25,21,275-286).  ``one_block`` stops after
     the first end-of-block, the ONEBLOCK analog (deflate.py:28,415-421).
     """
-    import os as _os
-
-    if (
-        not static_only
-        and not one_block
-        and jax.devices()[0].platform == "tpu"
-        and not _os.environ.get("TPU_DEFLATE_NO_FOREIGN_FAST")
-    ):
-        # device-paced per-block fast path (ops/foreign.py); None means
-        # the stream needs this XLA pipeline (sub-3-bit literal codes or
-        # oversized blocks)
-        from tpu_deflate.ops.foreign import inflate_foreign_device
-
-        r = inflate_foreign_device(data, start_bit)
-        if r is not None:
-            return r
-
     raw = np.frombuffer(bytes(data), dtype=np.uint8)
     m = len(raw)
     # pad the input to a power-of-two bucket so compiled programs are
@@ -1638,11 +1292,8 @@ def inflate_device(
     pwin = _pick_pwin(m_pad)
     while True:
         tok_cap = cap + 16
-        # vector_cllen: the batched mini-chase header decode also wins for
-        # single streams on TPU (measured 46 vs 68 ms/MiB at zlib -6)
         tk, ta, tb, tp, out_total, pos, err = tokenize(
             arr, start_bit, tok_cap=tok_cap, pwin=pwin,
-            vector_cllen=jax.devices()[0].platform == "tpu",
             static_only=static_only, one_block=one_block,
         )
         err = int(err)
@@ -1720,9 +1371,7 @@ def inflate_stream_step(
     while True:
         tk, ta, tb, tp, out_total, pos, err, bfinal = tokenize(
             arr, 0, tok_cap=cap + 16, end_bit=jnp.int32(end_bit), pwin=pwin,
-            stop_at_eob=True, static_only=static_only,
-            vector_cllen=jax.devices()[0].platform == "tpu",
-            return_bfinal=True,
+            stop_at_eob=True, static_only=static_only, return_bfinal=True,
         )
         err = int(err)
         if err == ERR_OVERFLOW or (err == ERR_OK and int(out_total) > cap):

@@ -1,8 +1,7 @@
-"""TPU-native block DEFLATE encoder (jittable, static shapes).
+"""Data-parallel block DEFLATE encoder (jittable, static shapes).
 
 Reinterprets the reference's one-byte-per-cycle encode FSM
-(/root/reference/deflate.py:734-1062) as four data-parallel stages that map
-onto the VPU:
+(/root/reference/deflate.py:734-1062) as four data-parallel stages:
 
   1. match-find   — every position's nearest previous 3-byte occurrence,
                     computed for ALL positions at once.  This generalizes
@@ -398,8 +397,7 @@ def _extend_matches_select(b, dist, n, max_match: int, window: int):
     is a shifted compare (slices, no gather); positions whose candidate
     dist == d extend along eq_d.  Replaces the reference's SEARCHF/
     SEARCH10 byte-at-a-time ladder (deflate.py:899-964) with
-    window x max_match vector ops — on TPU this beats per-position
-    gathers by ~100x (gathers run at ~100M idx/s, VPU ops are ~free).
+    window x max_match vector ops.
     """
     N = b.shape[0]
     idx = jnp.arange(N, dtype=jnp.int32)
@@ -440,8 +438,8 @@ def _match_extend_bitplane(b: jax.Array, n, window: int, max_match: int):
       * extension (SEARCHF/SEARCH10 ladder, deflate.py:899-964): the
         chosen distance's bit, extracted per position with a variable
         shift, walked over max_match-3 position shifts.
-    ~4 ops per distance instead of ~25 — on this part the op DISPATCH
-    (~20-40us each at batch sizes) dominates, so op count is the cost.
+    Everything is static slices and elementwise ops, which XLA fuses
+    into a few loop kernels.
     """
     N = b.shape[0]
     idx = jnp.arange(N, dtype=jnp.int32)
@@ -742,14 +740,12 @@ def _encode_emissions(
     use_sort_matcher: bool,
     lazy: bool = False,
     dynamic_encode: bool = False,
-    pre_dist: jax.Array | None = None,
-    pre_length: jax.Array | None = None,
     far_matcher: str = "exact",
 ):
     """Stages 1-4 of one block's encode: match, extend, parse, per-token
     emission values/widths and bit offsets.  Pure per-lane (vmappable);
-    the byte pack happens in the caller (XLA scatter per-lane, or the
-    batched Pallas monotone scatter in encode_blocks_batch)."""
+    the byte pack happens in the caller (per lane in encode_block_bits,
+    batched in encode_blocks_batch)."""
     N = data.shape[0]
     M = max_output_bytes(N)
     b = data.astype(jnp.int32)
@@ -763,10 +759,7 @@ def _encode_emissions(
     key3 = b | (b1 << 8) | (b2 << 16)
     # make positions whose 3-byte window crosses n unique so they never match
     key3 = jnp.where(idx + 3 <= n, key3, (1 << 24) + idx)
-    if pre_dist is not None:
-        # stages 1+2 already computed (batched Pallas bitplane matcher)
-        dist, length = pre_dist, pre_length
-    elif use_sort_matcher:
+    if use_sort_matcher:
         # stages 1+2 fused: best-of-many candidates (quality knob: exact
         # winner extension vs fast diagonal-run lengths)
         mf = (_match_candidates_fast if far_matcher == "fast"
@@ -1016,7 +1009,7 @@ def _encode_emissions(
         # static trees: e0 <= 13 bits (8-bit length code + 5 extras) and
         # e12 <= 18 (5-bit distance code + 13 extras), so one merged
         # <= 31-bit slot per position — HALVES the batched pack's entry
-        # count (the MXU scatter's cost is per-entry weight loads)
+        # count
         vals = e0_val | (e12_val << e0_nb)
         nbs = e0_nb + e12_nb
 
@@ -1083,8 +1076,8 @@ def encode_block_bits(
     Emits: 3-bit block header (BFINAL=final, BTYPE=static/dynamic), token
     codes, EOB; when final is false, appends an empty stored block so the
     output ends byte-aligned (bytewise-concatenatable chunks).
-    Single-lane path with an XLA scatter-add byte pack; the batched
-    encode_blocks_batch packs on the MXU instead."""
+    Single-lane path with a per-byte scatter-add pack; the batched
+    encode_blocks_batch packs 16-bit channels instead."""
     N = data.shape[0]
     M = max_output_bytes(N)
     all_vals, all_nbs, all_offs, total_bits, ntokens = _encode_emissions(
@@ -1165,83 +1158,46 @@ def encode_block(
     )
 
 
-@functools.partial(jax.jit, static_argnames=("config",))
-def encode_blocks_batch(data, lengths, finals, config: DeflateConfig = DeflateConfig()):
-    """Batched multi-block encode: data uint8[B, N].
+def scatter_add_channels(idx: jax.Array, vals: jax.Array, size: int) -> jax.Array:
+    """out[..., c, j] = sum of vals[..., c, e] over idx[..., e] == j.
 
-    Stages 1-4 run vmapped per lane; the bit-pack runs as ONE batched
-    monotone scatter-add (Pallas MXU kernel on TPU — bit offsets are
-    nondecreasing, the parallel form of the reference's serial put()
-    accumulator, deflate.py:535-567)."""
-    from tpu_deflate.kernels.monotone import SLAB, mono_scatter_add
+    idx: int32[..., K]; vals: int32[..., C, K].  Entries with idx outside
+    [0, size) drop out.  Returns int32[..., C, size].  Integer adds are
+    exact in any order, so the result does not depend on how the
+    backend schedules the scatter.
+    """
+    tgt = jnp.clip(idx, 0, size - 1)
+    drop = (idx < 0) | (idx >= size)
+    v = jnp.where(drop[..., None, :], 0, vals)
+    zero = jnp.zeros(vals.shape[:-1] + (size,), jnp.int32)
+    if idx.ndim == 1:
+        return zero.at[..., tgt].add(v)
+    f = scatter_add_channels
+    for _ in range(idx.ndim - 1):
+        f = jax.vmap(f, in_axes=(0, 0, None))
+    return f(idx, vals, size)
 
-    import os as _os
 
-    use_sort = config.window > 256
-    B, N = data.shape
-    M = max_output_bytes(N)
-    f = functools.partial(
-        _encode_emissions,
-        window=config.window,
-        max_match=config.max_match,
-        use_sort_matcher=use_sort,
-        lazy=config.lazy,
-        dynamic_encode=config.dynamic_encode,
-        far_matcher=config.far_matcher,
-    )
-    if (
-        jax.devices()[0].platform == "tpu"
-        and not use_sort
-        and config.window <= 256
-        and N % 128 == 0
-        # bitplane channel scratch is N*window/8 bytes; keep under VMEM
-        and N * config.window // 8 <= (6 << 20)
-        and not _os.environ.get("TPU_DEFLATE_NO_PALLAS_MATCH")
-    ):
-        # stages 1+2 for the whole batch in ONE kernel launch (the XLA
-        # sweep is dispatch-bound at ~4 ops x window distances)
-        from tpu_deflate.kernels.match2 import match_bitplane_batch
+def pack_emissions(vals, nbs, offs, M: int, emax: int) -> jax.Array:
+    """Batched bit-pack: emission values at bit offsets -> int32[B, M] bytes.
 
-        dists, lens2 = match_bitplane_batch(
-            data, lengths, config.window, config.max_match
-        )
-
-        def f2(d, n_, fin, pd, pl_):
-            return f(d, n_, fin, pre_dist=pd, pre_length=pl_)
-
-        vals, nbs, offs, total_bits, ntok = jax.vmap(f2)(
-            data, lengths, finals, dists, lens2
-        )
-    else:
-        vals, nbs, offs, total_bits, ntok = jax.vmap(f)(data, lengths, finals)
-
+    vals/nbs/offs: int32[B, K] per-token emission values, widths and bit
+    offsets (the parallel form of the reference's serial put()
+    accumulator, deflate.py:535-567).  A value of emax bits shifted by
+    <= 7 spans ceil((emax+7)/16) 16-bit channels at bytes j, j+2, j+4;
+    one scatter-add per channel, then the channels are folded into bytes.
+    Emissions are bit-disjoint, so every byte sum is carry-free."""
     live = nbs > 0
-    # per-config max emission width picks the channel count: a value of
-    # emax bits shifted by <= 7 spans ceil((emax+7)/16) 16-bit channels
-    # at bytes j, j+2, j+4.  win256/m10 static merges to <= 20 bits ->
-    # TWO channels (vs three), a third off the MXU paint work.
-    if config.dynamic_encode:
-        emax = 28
-    elif config.window <= 256 and config.max_match <= 18:
-        emax = 20
-    else:
-        emax = 31
     nch = -(-(emax + 7) // 16)
     s = offs & 7
     byte_idx = offs >> 3
-    K = vals.shape[1]
-    Kp = -(-K // SLAB) * SLAB
-    pad = Kp - K
-    byte_idx = jnp.pad(byte_idx, ((0, 0), (0, pad)), constant_values=M)
     c0 = ((vals & 0xFFFF) << s) & 0xFFFF
     c1 = (vals >> (16 - s)) & 0xFFFF
     c2 = (vals >> 16) >> (16 - s)
     ch = jnp.stack(
         [jnp.where(live, c, 0) for c in (c0, c1, c2)[:nch]], axis=1
     )  # (B, nch, K)
-    ch = jnp.pad(ch, ((0, 0), (0, 0), (0, pad)))
-    packed = mono_scatter_add(byte_idx, ch, M + 8, emax_bits=emax)
-    # bit-disjointness of emissions makes every byte sum carry-free
+    packed = scatter_add_channels(byte_idx, ch, M + 8)
     out = (packed[:, 0, :M] & 0xFF) + jnp.pad(
         (packed[:, 0, : M - 1] >> 8) & 0xFF, ((0, 0), (1, 0))
     )
@@ -1251,7 +1207,35 @@ def encode_blocks_batch(data, lengths, finals, config: DeflateConfig = DeflateCo
         out = out + jnp.pad(
             (packed[:, c, : M - disp - 1] >> 8) & 0xFF, ((0, 0), (disp + 1, 0))
         )
+    return out
 
+
+@functools.partial(jax.jit, static_argnames=("config",))
+def encode_blocks_batch(data, lengths, finals, config: DeflateConfig = DeflateConfig()):
+    """Batched multi-block encode: data uint8[B, N].
+
+    Stages 1-4 run vmapped per lane; the bit-pack runs batched
+    (pack_emissions)."""
+    B, N = data.shape
+    M = max_output_bytes(N)
+    f = functools.partial(
+        _encode_emissions,
+        window=config.window,
+        max_match=config.max_match,
+        use_sort_matcher=config.window > 256,
+        lazy=config.lazy,
+        dynamic_encode=config.dynamic_encode,
+        far_matcher=config.far_matcher,
+    )
+    vals, nbs, offs, total_bits, ntok = jax.vmap(f)(data, lengths, finals)
+    # widest single emission (code + extra bits) the config can produce
+    if config.dynamic_encode:
+        emax = 28
+    elif config.window <= 256 and config.max_match <= 18:
+        emax = 20
+    else:
+        emax = 31
+    out = pack_emissions(vals, nbs, offs, M, emax)
     outs, out_lens = jax.vmap(
         functools.partial(_finalize_block, M=M)
     )(data, lengths, finals, out, total_bits)

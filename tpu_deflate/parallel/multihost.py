@@ -1,20 +1,21 @@
-"""Multi-host orchestration: the pod-slice layer (BASELINE config 5).
+"""Multi-host orchestration: one mesh over the devices of several hosts
+(BASELINE config 5).
 
-The reference tops out at one FPGA with a host poking ports; the TPU
-equivalent of "more throughput" is more chips across hosts.  Everything in
+The reference tops out at one FPGA with a host poking ports; here more
+throughput means more devices, across hosts.  Everything in
 parallel/shard.py is mesh-shape-agnostic — this module only adds process
 bootstrap and host-local data feeding so the same shard_map programs run
-on a v5e-16 (or any slice) unchanged:
+on any number of hosts unchanged:
 
-  * initialize(): jax.distributed.initialize() when env indicates a
-    multi-process launch (no-op on a single host)
-  * global_mesh(): 1-D "dp" mesh over ALL devices in the slice
+  * initialize(): jax.distributed.initialize() when the environment names
+    a coordinator (no-op on a single host)
+  * global_mesh(): 1-D "dp" mesh over ALL devices of all processes
   * host_shard_bounds(): which chunks this process should materialize —
     with jax.make_array_from_single_device_arrays the per-host feeding
-    pattern; collectives then ride ICI within hosts and DCN across.
+    pattern.
 
-Single-host degenerates to parallel/shard.py exactly; multi-host behavior
-is validated by the driver's dryrun on a virtual device mesh.
+Single-host degenerates to parallel/shard.py exactly; the two-process
+path is tested on virtual CPU devices (tests/test_multihost.py).
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 def initialize() -> bool:
     """Initialize jax.distributed if a multi-process environment is
-    detected (COORDINATOR_ADDRESS / JAX_COORDINATOR or TPU pod env).
-    Returns True if the process is part of a multi-process slice.
+    detected (COORDINATOR_ADDRESS or JAX_COORDINATOR_ADDRESS, with
+    NUM_PROCESSES and PROCESS_ID).  Returns True if the process is one of
+    several.
 
     Must run before anything touches the XLA backend, so the coordinator
     env is checked FIRST — jax.process_count() itself would initialize
@@ -51,7 +53,7 @@ def initialize() -> bool:
 
 
 def global_mesh(axis: str = "dp") -> Mesh:
-    """1-D mesh over every device in the slice (all hosts)."""
+    """1-D mesh over every device of every process."""
     return Mesh(np.asarray(jax.devices()), (axis,))
 
 

@@ -1,17 +1,17 @@
-"""Data-parallel sharding layer: the TPU-native scale mechanism.
+"""Data-parallel sharding layer: how the codec scales across devices.
 
 The reference's only I/O scaling story is its byte-wide host port protocol
 with backpressure (/root/reference/deflate.py:18,220-221,599-605 and driver
-test_deflate.py:142-174).  On a TPU pod the equivalent is data parallelism
-over independent DEFLATE block runs (SURVEY.md section 2.3): shard the
-chunk batch over a 1-D device mesh, encode/decode locally, exchange sizes
-with an all-gather over ICI, compute global offsets by exclusive scan, and
-assemble the ordered stream with a ragged gather.  Per-chunk Adler-32
-states fold with the associative combine rule, so the stream checksum
-needs no serial pass anywhere.
+test_deflate.py:142-174).  Across several devices the equivalent is data
+parallelism over independent DEFLATE block runs (SURVEY.md section 2.3):
+shard the chunk batch over a 1-D device mesh, encode/decode locally,
+exchange sizes with an all-gather, compute global offsets by exclusive
+scan, and assemble the ordered stream with a ragged gather.  Per-chunk
+Adler-32 states fold with the associative combine rule, so the stream
+checksum needs no serial pass anywhere.
 
-Multi-host: the same mesh spans hosts via jax.distributed; collectives
-ride ICI/DCN, nothing here changes.
+Multi-host: the same mesh spans hosts via jax.distributed; nothing here
+changes.
 """
 
 from __future__ import annotations
@@ -21,12 +21,12 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from tpu_deflate.config import DeflateConfig
-from tpu_deflate.ops.checksum import ADLER_MOD, adler32_state
-from tpu_deflate.ops.decode import TABLE_BITS, expand_batch, tokenize
-from tpu_deflate.ops.encode import encode_block_bits, max_output_bytes
+from tpu_deflate.ops.checksum import adler32_state
+from tpu_deflate.ops.decode import chunk_pwin, expand_batch, tokenize
+from tpu_deflate.ops.encode import encode_blocks_batch
 
 
 def make_mesh(devices=None, axis: str = "dp") -> Mesh:
@@ -71,13 +71,11 @@ def encode_shard_fn(config: DeflateConfig, axis: str = "dp"):
     In: data uint8[b, C], lengths int32[b], finals bool[b] (local shard).
     Out: (out uint8[b, M], out_sizes int32[b], global (a, b, len) fold).
     """
-    from tpu_deflate.ops.encode import encode_blocks_batch
-
     def fn(data, lengths, finals):
         out, sizes, _ = encode_blocks_batch(data, lengths, finals, config)
         a, b = jax.vmap(adler32_state)(data, lengths)
-        # fold local chunk states, then exchange across the mesh.  The
-        # all-gather of 3 scalars per device is the ICI size-exchange.
+        # fold local chunk states, then exchange 3 scalars per device
+        # across the mesh with an all-gather.
         fa, fb, fl = _adler_fold(a, b, lengths)
         ga = jax.lax.all_gather(fa, axis)
         gb = jax.lax.all_gather(fb, axis)
@@ -86,6 +84,19 @@ def encode_shard_fn(config: DeflateConfig, axis: str = "dp"):
         return out, sizes, sa, sb, sl
 
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_encoder(mesh: Mesh, config: DeflateConfig, axis: str):
+    """Jitted shard_map encode, built once per (mesh, config, axis): a
+    fresh ``jax.jit`` wrapper per call would re-trace every call."""
+    return jax.jit(jax.shard_map(
+        encode_shard_fn(config, axis),
+        mesh=mesh,
+        in_specs=(P(axis), P(axis), P(axis)),
+        out_specs=(P(axis), P(axis), P(), P(), P()),
+        check_vma=False,
+    ))
 
 
 def encode_sharded(
@@ -102,15 +113,9 @@ def encode_sharded(
     (out uint8[B, M], sizes int32[B], adler uint32) with out/sizes sharded
     over the batch axis.
     """
-    fn = encode_shard_fn(config, axis)
-    mapped = jax.shard_map(
-        fn,
-        mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis)),
-        out_specs=(P(axis), P(axis), P(), P(), P()),
-        check_vma=False,
+    out, sizes, sa, sb, sl = _sharded_encoder(mesh, config, axis)(
+        data, lengths, finals
     )
-    out, sizes, sa, sb, sl = jax.jit(mapped)(data, lengths, finals)
     adler = (sb.astype(jnp.uint32) << 16) | sa.astype(jnp.uint32)
     return out, sizes, adler
 
@@ -124,8 +129,6 @@ def decode_shard_fn(chunk_out_size: int, tok_cap: int, axis: str = "dp",
     In: data uint8[M] (replicated), start_bits int32[b], end_bits int32[b].
     Out: (out uint8[b, chunk_out_size], out_lens int32[b], errs int32[b]).
     """
-
-    from tpu_deflate.ops.decode import chunk_pwin
 
     def fn(data, start_bits, end_bits):
         tk, ta, tb, tp, _tot, _pos, err = jax.vmap(
@@ -141,6 +144,21 @@ def decode_shard_fn(chunk_out_size: int, tok_cap: int, axis: str = "dp",
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sharded_decoder(mesh: Mesh, chunk_out_size: int, axis: str,
+                     static_only: bool):
+    """Jitted shard_map decode, built once per argument set (see
+    _sharded_encoder)."""
+    fn = decode_shard_fn(chunk_out_size, chunk_out_size + 16, axis, static_only)
+    return jax.jit(jax.shard_map(
+        fn,
+        mesh=mesh,
+        in_specs=(P(), P(axis), P(axis)),
+        out_specs=(P(axis), P(axis), P(axis)),
+        check_vma=False,
+    ))
+
+
 def decode_sharded(
     data: jax.Array,
     start_bits: jax.Array,
@@ -153,13 +171,5 @@ def decode_sharded(
     """DP-sharded chunk-parallel decode: stream replicated, chunk boundary
     lists sharded over the mesh.  ``static_only`` selects the arithmetic
     stored/static-tree decoder (our container's fast path)."""
-    tok_cap = chunk_out_size + 16
-    fn = decode_shard_fn(chunk_out_size, tok_cap, axis, static_only)
-    mapped = jax.shard_map(
-        fn,
-        mesh=mesh,
-        in_specs=(P(), P(axis), P(axis)),
-        out_specs=(P(axis), P(axis), P(axis)),
-        check_vma=False,
-    )
-    return jax.jit(mapped)(data, start_bits, end_bits)
+    dec = _sharded_decoder(mesh, chunk_out_size, axis, static_only)
+    return dec(data, start_bits, end_bits)

@@ -1,6 +1,6 @@
 """Host-side reference DEFLATE encoder (pure Python/numpy).
 
-Correctness model for the TPU encode path.  Behavioral superset of the
+Correctness model for the device encode path.  Behavioral superset of the
 reference compressor (/root/reference/deflate.py:734-1062): greedy LZ77
 with a configurable sliding window (reference: 32/256 bytes; here up to the
 full 32 KB) and configurable max match (reference: 5, or 10 with MATCH10;

@@ -1,6 +1,6 @@
 """Host-side reference DEFLATE decoder (pure Python/numpy).
 
-Correctness model for the TPU decode path.  Covers everything the reference
+Correctness model for the device decode path.  Covers everything the reference
 hardware decodes (/root/reference/deflate.py:656-1659): stored blocks
 (method 0), static-Huffman (method 1), dynamic-Huffman (method 2), multi-
 block streams, and the full 32 KB back-reference window.  Where the

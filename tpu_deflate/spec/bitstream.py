@@ -3,10 +3,10 @@
 DEFLATE packs bits LSB-first within bytes (RFC 1951 section 3.1.1).  These
 are the host-side reference analogs of the reference design's bit-getter
 ``get4``/``adv`` (/root/reference/deflate.py:517-533) and bit-putter
-``put``/``do_flush`` (/root/reference/deflate.py:535-567).  The TPU encode
-path replaces the writer with a prefix-sum + scatter pack kernel
-(tpu_deflate/ops/bitpack.py); these classes are the oracle they are tested
-against.
+``put``/``do_flush`` (/root/reference/deflate.py:535-567).  The device
+encode path replaces the writer with a prefix-sum + scatter-add pack
+(``pack_emissions`` in tpu_deflate/ops/encode.py); these classes are the
+oracle it is tested against.
 """
 
 from __future__ import annotations

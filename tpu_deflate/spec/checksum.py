@@ -2,7 +2,7 @@
 
 Adler-32 is the reference's running ``adler1/adler2`` pair
 (/root/reference/deflate.py:381-383,828-831); here it is reformulated as a
-vectorizable weighted sum so the TPU can compute it in one pass, plus the
+vectorizable weighted sum so the device can compute it in one pass, plus the
 standard combine rule so independently-checksummed shards can be merged
 after a data-parallel encode (this replaces the reference's byte-serial
 CHECKSUM state, deflate.py:884-897).

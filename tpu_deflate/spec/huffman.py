@@ -5,9 +5,8 @@ SPREAD replication (tomtor/HDL-deflate: canonical builder HF1..HF4_3/SPREAD,
 /root/reference/deflate.py:1204-1400; leaf packing ``makeLeaf``/``get_bits``/
 ``get_code``, deflate.py:253-266).  Instead of the reference's
 instantMaxBit + widen-on-miss loop (deflate.py:1423-1430) we build a FULL
-``2**max_bits`` table so decode is always a single lookup — table RAM is
-cheap on TPU (a 15-bit table is 128 KiB of int32) and a branch-free decode
-loop is what the VPU wants.
+``2**max_bits`` table so decode is always a single lookup (a 15-bit table
+is 128 KiB of int32) with a branch-free decode loop.
 
 Leaf packing: entry = (symbol << 4) | nbits, nbits in 1..15, 0 == invalid.
 """

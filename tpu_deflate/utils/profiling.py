@@ -2,7 +2,8 @@
 reference's VCD dumps and cycle counters (SURVEY.md section 5:
 dump.v $dumpvars, IN/OUT/CYCLES/WAIT prints at test_deflate.py:191-192).
 
-On TPU the equivalents are jax.profiler traces and per-op GB/s counters.
+On the device the equivalents are jax.profiler traces and per-stage GB/s
+counters.
 """
 
 from __future__ import annotations
